@@ -1,11 +1,11 @@
-"""delphy_tpu — a TPU-native Bayesian phylogenetics engine.
+"""delphy_tpu — a JAX Bayesian phylogenetics engine.
 
 A from-scratch re-design of the Explicit Mutation-Annotated Tree (EMAT) method of
-broadinstitute/delphy (reference: /root/reference) for JAX/XLA on TPU.  The MCMC
-state lives in fixed-capacity flat device arrays (node arrays + mutation pool +
-missation CSR tables); all likelihood math is expressed as vectorized segment
-sums, prefix scans and pointer-jumping gathers instead of the reference's
-pointer/arena C++ structures.
+broadinstitute/delphy for JAX/XLA on an accelerator.  The MCMC state lives in
+fixed-capacity flat device arrays (node arrays + mutation pool + missation CSR
+tables); all likelihood math is expressed as vectorized segment sums, prefix
+scans and pointer-jumping gathers instead of the reference's pointer/arena C++
+structures.
 
 Double precision is required for the log-posterior ledger discipline
 (reference tolerances 1e-6..1e-8, see core/run.cpp:316-338), so x64 mode is
@@ -18,10 +18,10 @@ import jax
 
 # Precision: double by default (the reference's ledger tolerances are
 # 1e-6..1e-8, run.cpp:316-338).  DELPHY_TPU_F32=1 runs the whole engine in
-# single precision — on TPU, f64 is software-emulated and much slower; the
-# full ledger recompute at every global boundary resets f32 accumulation
-# drift, and MH log-ratios at 1e-7 relative error are statistically
-# negligible.  Times at f32 resolve ~5 seconds over a +-1000-day axis.
+# single precision: the full ledger recompute at every global boundary resets
+# f32 accumulation drift, and MH log-ratios at 1e-7 relative error are
+# statistically negligible.  Times at f32 resolve ~5 seconds over a
+# +-1000-day axis.
 if not os.environ.get("DELPHY_TPU_F32"):
     jax.config.update("jax_enable_x64", True)
 else:
@@ -31,13 +31,21 @@ else:
 if os.environ.get("DELPHY_TPU_FORCE_CPU"):
     jax.config.update("jax_platforms", "cpu")
 
-# Persistent compilation cache: kernels are re-dispatched across many host
-# processes (CLI runs, benches); first TPU compiles are expensive.
-_cache_dir = os.environ.get("DELPHY_TPU_COMPILE_CACHE",
-                            os.path.expanduser("~/.cache/delphy_tpu_xla"))
+
+def compile_cache_dir(environ=os.environ):
+    """Where this package puts JAX's persistent compilation cache: None when
+    JAX_COMPILATION_CACHE_DIR is set (JAX reads it itself), else a fixed
+    `.jax_cache` in the checkout (a fixed path, because the path is part of
+    the cache key)."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".jax_cache")
+
+
+_cache_dir = compile_cache_dir()
 if _cache_dir:
-    os.makedirs(_cache_dir, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from .version import __version__  # noqa: E402,F401

@@ -20,7 +20,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="delphy-tpu",
-        description="TPU-native Bayesian phylogenetics via Explicit Mutation-Annotated Trees")
+        description="Accelerator-native Bayesian phylogenetics via Explicit Mutation-Annotated Trees")
     p.add_argument("--version", action="store_true")
     a = p.add_argument
     a("--v0-in-fasta", metavar="FILE")
@@ -444,7 +444,8 @@ def _main(args) -> int:
         from jax.sharding import Mesh
         devs = jax.devices()
         if n_mesh > len(devs):
-            p.error(f"--mesh-devices {n_mesh}: only {len(devs)} devices visible")
+            raise _CliError(f"--mesh-devices {n_mesh}: only {len(devs)} "
+                            "devices visible")
         run_kwargs["mesh"] = Mesh(np.array(devs[:n_mesh]), axis_names=("part",))
         print(f"Sharding partitioned sweeps over {n_mesh} devices",
               file=sys.stderr)

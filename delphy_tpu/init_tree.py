@@ -1,6 +1,6 @@
 """Initial-tree pipeline: parsimony factoring + OLS root-to-tip rooting.
 
-The TPU-era counterpart of the reference's utree pipeline
+This engine's counterpart of the reference's utree pipeline
 (core/utree.h:235-317 build_initial_phylo_tree): build a guide topology by
 greedy insertion, factor the tip differences into internal branch mutations
 by Fitch parsimony, choose the root by scanning edge midpoints for the

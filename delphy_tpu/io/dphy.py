@@ -333,7 +333,7 @@ class DphyOutput:
         self._u32(VERSION)
         self._str(CORE_VERSION)
         self._u32(0)            # build number
-        self._str("tpu")        # commit string
+        self._str("delphy_tpu")  # commit string
         self._u32(0)            # knee index
         self._u32(steps_per_sample)
         self._u32(1 if run.hyp.alpha_move_enabled else 0)

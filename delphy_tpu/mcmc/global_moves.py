@@ -370,23 +370,12 @@ def skygrid_hmc_move(key, p: popm.SkygridPopParams, grid: coal.CoalGrid,
 
 
 def exp_pop_moves(key, pop_params: popm.ExpPopParams, grid: coal.CoalGrid,
-                  t, is_tip, hyp: PriorConfig, n_rounds: int = 50,
-                  allow_pallas: bool = True):
+                  t, is_tip, hyp: PriorConfig, n_rounds: int = 50):
     """50 rounds of n0 scale moves + g random-walk moves (run.cpp:1237-1319).
 
     k_bar is fixed (node times don't change); each proposal re-evaluates the
     coalescent prior with new popsize_bars in O(C) + O(N).
-
-    On TPU the whole chain runs as one fused Pallas kernel
-    (parallel/pop_pallas.py): the ~100 sequential tiny-op prior evaluations
-    cost ~1.8 ms/boundary in XLA form — 40% of an Ebola-scale boundary.
-    Identical move semantics; only the RNG layout differs.
     """
-    from ..parallel.sweep import pallas_enabled
-    if allow_pallas and pallas_enabled() and not jax.config.x64_enabled:
-        from ..parallel import pop_pallas as pp
-        return pp.exp_pop_chain(key, pop_params, grid, t, is_tip, hyp,
-                                n_rounds, use_kernel=True)
     lbs = grid.cell_lbounds()
 
     def coal_log_prior_for(p):

@@ -1,6 +1,6 @@
 """Local MCMC moves, fully vectorized per move.
 
-Each move body is O(pool + grid-cells) of vectorized VPU work with no
+Each move body is O(pool + grid-cells) of vectorized device work with no
 data-dependent shapes, so a sweep compiles to a single fori_loop kernel.
 Move semantics mirror core/subrun.cpp:
 
@@ -330,8 +330,8 @@ def batched_branch_reform(ts: TreeState, ledger: Ledger, evo: EvoParams, key,
     branch-reform touches only its own branch's mutation times (lambda_i and
     the coalescent prior are unaffected, subrun.cpp:287-320), so reforms on
     distinct branches are independent MH kernels — batch-accepting each
-    independently equals composing them sequentially.  This is where the TPU
-    wins over the reference's one-at-a-time loop."""
+    independently equals composing them sequentially.  This is where the
+    device wins over the reference's one-at-a-time loop."""
     N = ts.num_nodes
     M = ts.mut_t.shape[0]
     L = ts.num_sites

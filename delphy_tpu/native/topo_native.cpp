@@ -2,7 +2,7 @@
 //
 // C++ implementation of the host-side SPR/subtree-slide machinery, a direct
 // port of THIS repo's validated Python modules (delphy_tpu/topo/{site_deltas,
-// history,graft,study,mixer,vsc}.py — which are themselves TPU-era re-designs
+// history,graft,study,mixer,vsc}.py — which are themselves array re-designs
 // of the reference's core/spr_move.cpp, core/spr_study.cpp, core/subrun.cpp,
 // core/very_scalable_coalescent.cpp).  One extern-"C" call runs a whole burst
 // of topology moves on a CSR-serialized tree; the GIL is released for the

@@ -5,7 +5,7 @@ core/spr_move.cpp:1164-1370): K-truncated Poisson event counts, Nielsen
 rejection to the endpoint constraint, uniformized event times.  This is the
 likelihood-heavy inner piece of the SPR proposal expressed as fixed-shape
 batched kernels — the building block for moving topology proposals onto the
-device (round-1 verdict item 3).
+device.
 
 Distributionally identical to the host sampler (pinned by
 tests/test_distributions.py::test_jit_history_matches_host), not

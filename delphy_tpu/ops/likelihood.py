@@ -34,7 +34,7 @@ def _num_doubling_iters(n: int) -> int:
 def path_sums(parent: jnp.ndarray, delta: jnp.ndarray) -> jnp.ndarray:
     """result[i] = sum of delta over the path root..i (inclusive of both ends).
 
-    Pointer-jumping: O(N log N) work, log-depth gathers — the TPU replacement
+    Pointer-jumping: O(N log N) work, log-depth gathers — the device replacement
     for the reference's pre-order traversal accumulation.
     """
     n = parent.shape[0]

@@ -1,4 +1,4 @@
-"""Tree-partition parallelism on the device (mesh) — the TPU re-design of the
+"""Tree-partition parallelism on the device (mesh) — the device re-design of the
 reference's only execution parallelism (core/run.cpp:682-693: per-partition
 Subrun::mcmc_sub_iteration farmed onto a thread pool, statistically decoupled
 by core/very_scalable_coalescent.cpp).

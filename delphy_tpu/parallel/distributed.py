@@ -1,20 +1,20 @@
-"""Multi-host (DCN) scaffolding: jax.distributed initialization + the global
-part mesh.
+"""Multi-host scaffolding: jax.distributed initialization + the global part
+mesh.
 
 The single-controller-per-host model: each host process initializes the
 distributed runtime (coordinator rendezvous), after which jax.devices()
 returns the GLOBAL device list and a ("part",) Mesh over it spans hosts.
-The partitioned sweep's psum reassembly (sweep.py) then rides ICI within a
-slice and DCN across hosts — the multi-host analogue of the reference's
-single-host thread fan-out (run.cpp:622-693), which has no cross-host story
-at all (SURVEY §2.3 "DCN across hosts").
+The partitioned sweep's psum reassembly (sweep.py) then rides the in-host
+device links and the network across hosts — the multi-host analogue of the
+reference's single-host thread fan-out (run.cpp:622-693), which has no
+cross-host story at all (SURVEY §2.3).
 
 Environment contract (mirrors the standard JAX cluster variables):
   DELPHY_TPU_COORDINATOR   host:port of process 0 (required to enable)
   DELPHY_TPU_NUM_PROCESSES total process count
   DELPHY_TPU_PROCESS_ID    this process's rank
-On TPU pods these fall back to jax.distributed's automatic cluster
-detection when unset but DELPHY_TPU_DISTRIBUTED=1 is set.
+With DELPHY_TPU_DISTRIBUTED=1 and these unset, jax.distributed's automatic
+cluster detection is used (on clusters that provide one).
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def initialize_from_env() -> bool:
 
 def mesh_spans_processes(mesh) -> bool:
     """True when the mesh's devices belong to more than one JAX process —
-    the multi-host (DCN) regime, where Run must build GLOBAL arrays."""
+    the multi-host regime, where Run must build GLOBAL arrays."""
     return len({d.process_index for d in mesh.devices.flat}) > 1
 
 
@@ -83,7 +83,7 @@ def shard_parts_to_mesh(pm, mesh):
     """Build the partition maps as GLOBAL arrays sharded over the ("part",)
     axis from PROCESS-LOCAL rows: each process feeds only the part rows its
     addressable devices own (jax.make_array_from_process_local_data), so the
-    part axis never ships whole across DCN.  `pm` is the host (numpy)
+    part axis never ships whole across hosts.  `pm` is the host (numpy)
     PartMaps pytree with a leading P axis on every leaf."""
     import jax
     import numpy as np
@@ -106,8 +106,8 @@ def shard_parts_to_mesh(pm, mesh):
 def global_part_mesh(max_devices: int | None = None):
     """A ("part",) Mesh over the GLOBAL device list (all processes).  Device
     order is jax.devices() order, so processes agree on the assignment and
-    the partition->device mapping is contiguous per host (part psums ride
-    ICI first, DCN only at the host boundary)."""
+    the partition->device mapping is contiguous per host (part psums stay
+    on the in-host links first, the network only at the host boundary)."""
     import numpy as np
     import jax
     from jax.sharding import Mesh

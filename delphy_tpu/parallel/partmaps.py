@@ -126,33 +126,35 @@ def pad_part_maps(pm: "PartMaps", P: int, n_cap: int, m_cap: int,
 def auto_num_partitions(num_tips: int, max_parts: int = 32) -> int:
     """Default partition count: same spirit as the reference's
     threads-as-partitions default (tools/delphy.cpp:130-132), scaled for
-    SIMD-width device parallelism; stencil generation needs >=10 branches
+    data-parallel device sweeps; stencil generation needs >=10 branches
     per part (tree_partitioning.h:139-194).
 
-    Above ~5k tips the cap grows so per-part node capacity stays ~<=512:
-    the Pallas sweep kernel holds (n_cap, n_cap) masks in VMEM, and parts
-    are the grid axis, so many small parts beat few big ones."""
+    Above ~5k tips the cap grows so per-part node capacity stays ~<=512
+    (parts are the sweep's parallel axis, so many small parts beat few big
+    ones)."""
     import os
     env = os.environ.get("DELPHY_TPU_P", "")
     if env:
         return max(1, int(env))
     # ~2N/P <= 300 with stencil imbalance headroom, rounded up to a multiple
-    # of 8 (sublane-friendly vmap/grid width)
+    # of 8.  Both constants fix the compiled shapes (and so the
+    # trajectories); re-tuning them for the GPU is a ROADMAP item.
     need = max(max_parts, -(-2 * num_tips // 300))
     need = (need + 7) // 8 * 8
     return max(1, min(num_tips // 10, need))
 
 
+# default hard cap on nodes per part (it fixes the compiled n_cap at scale)
+PART_SIZE_CAP = 768
+
+
 def part_size_cap() -> int:
     """Hard upper bound on nodes per part, enforced by the oversized-part
     splitter (topo.partition.split_oversized_cuts) for multi-part runs.
-    Default = 3/4 of the Pallas NC gate so the padded n_cap stays on the
-    fused-kernel path whenever the MEAN part size allows."""
+    DELPHY_TPU_PART_CAP overrides the default of PART_SIZE_CAP nodes."""
     import os
     cap = int(os.environ.get("DELPHY_TPU_PART_CAP", "0"))
-    if cap > 0:
-        return cap
-    return (3 * int(os.environ.get("DELPHY_TPU_PALLAS_NC_MAX", "1024"))) // 4
+    return cap if cap > 0 else PART_SIZE_CAP
 
 
 def _round8(n: int) -> int:
@@ -176,8 +178,8 @@ def build_part_maps(tree: FlatTree, mut_node: np.ndarray,
     N = tree.num_nodes
     root = int(tree.root)
     # best-of-K stencils by max part size: the greedy generator's residual
-    # root part routinely overshoots the mean 3-4x, and n_cap (hence the
-    # Pallas kernel's VMEM mask footprint) is set by the WORST part.  The
+    # root part routinely overshoots the mean 3-4x, and n_cap (hence every
+    # compiled per-part shape) is set by the WORST part.  The
     # reference similarly keeps a cache of 10 stencils (run.cpp:87-108).
     cut_points: list = []
     if num_parts > 1:
@@ -185,7 +187,7 @@ def build_part_maps(tree: FlatTree, mut_node: np.ndarray,
             tree, num_parts, rng, return_sizes=True, tries=6)
         best_mx = max(sizes)
         # hard-cap the worst part: best-of-6 still overshoots the mean 3-8x
-        # at 100k tips, and n_cap (the Pallas VMEM mask edge) is set by the
+        # at 100k tips, and n_cap (every per-part shape) is set by the
         # worst part.
         cap = part_size_cap()
         if best_mx is not None and best_mx > cap:

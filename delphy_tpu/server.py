@@ -4,7 +4,7 @@ The reference exposes its engine to delphy-web through 177 `extern "C"` WASM
 exports (/root/reference/tools/delphy_wasm.cpp:69-1934): async input parsing,
 run construction + parameter setters, async stepping, state pulls (tree and
 params flatbuffers, probers, MCC), and .dphy save/load.  This module is the
-TPU-native functional equivalent (doc/API.md is the mapping contract): a
+functional equivalent (doc/API.md is the mapping contract): a
 newline-delimited JSON-RPC server over TCP, one engine process serving any
 number of runs, long operations as pollable jobs (the `*_async` + JS-callback
 pattern of delphy_wasm.cpp:185,315,875-894 becomes submit + poll).

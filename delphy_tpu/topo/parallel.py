@@ -27,12 +27,24 @@ def _pool_usable() -> bool:
 
 
 def _get_pool(n_workers: int):
+    """Spawn pool whose workers never open the accelerator: they start with
+    JAX_PLATFORMS=cpu in their environment (one process per card)."""
     global _POOL
     if _POOL is None or _POOL._processes < n_workers:
         if _POOL is not None:
             _POOL.terminate()
         ctx = mp.get_context("spawn")
-        _POOL = ctx.Pool(processes=n_workers)
+        keys = ("JAX_PLATFORMS", "DELPHY_TPU_FORCE_CPU")
+        saved = {k: os.environ.get(k) for k in keys}
+        os.environ.update(JAX_PLATFORMS="cpu", DELPHY_TPU_FORCE_CPU="1")
+        try:
+            _POOL = ctx.Pool(processes=n_workers)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
         atexit.register(_POOL.terminate)
     return _POOL
 
@@ -42,7 +54,6 @@ def run_part_burst(payload):
     and ledger deltas."""
     (part_tree, vsc, n_moves, can_change_root, mu, nu, q, pi, seed,
      sp, q_tab) = payload
-    os.environ.setdefault("DELPHY_TPU_FORCE_CPU", "1")
     from .mixer import TopologyMixer
 
     rng = np.random.default_rng(seed)

@@ -49,8 +49,8 @@ def generate_random_partition_stencil(tree: FlatTree, num_parts: int,
     cut order, then the residual root part) at no extra cost.  With
     tries > 1, generates that many independent stencils and keeps the one
     with the smallest WORST part (the reference keeps a cache of 10
-    stencils, run.cpp:87-108; n_cap — and the Pallas kernel's O(n_cap^2)
-    VMEM masks — are set by the worst part).  Dispatches to the native
+    stencils, run.cpp:87-108; n_cap — and with it every compiled per-part
+    shape — is set by the worst part).  Dispatches to the native
     kernel when available (~40x the Python loop at 100k tips, which made
     best-of-6 a 5 s/burst fixed cost); the Python loop below is the
     fallback and the validation twin."""
@@ -105,9 +105,8 @@ def split_oversized_cuts(tree: FlatTree, cut_points: list, cap: int) -> list:
 
     The greedy stencil generator's parts routinely overshoot the mean 3-8x
     (the residual root part, and subtrees that jump past min_size at a
-    binary join), and the Pallas sweep kernel's VMEM masks are O(n_cap^2)
-    with n_cap set by the WORST part — at 100k tips the overshoot alone
-    pushes the run off the fused kernel.  One post-order pass: wherever the
+    binary join), and every per-part sweep shape is sized by n_cap, which
+    the WORST part sets.  One post-order pass: wherever the
     running within-part size exceeds cap, cut the larger child until it
     fits.  Every resulting part is <= cap because a node's children are
     finalized (each <= cap) before the node itself is examined."""

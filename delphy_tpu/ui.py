@@ -1,7 +1,7 @@
-"""Live terminal dashboard — the delphy_ui role for a headless TPU engine.
+"""Live terminal dashboard — the delphy_ui role for a headless accelerator engine.
 
 The reference ships an SDL live view of a running chain (tree rendering +
-parameter traces, /root/reference/tools/delphy_ui.cpp:1-1241).  A TPU engine
+parameter traces, tools/delphy_ui.cpp:1-1241).  An accelerator engine
 runs in a datacenter, so the equivalent surface here is a TERMINAL dashboard
 over the JSON-RPC engine server (delphy_tpu/server.py): it polls
 `get_state`, renders the stats the SDL view draws (step counter, posterior

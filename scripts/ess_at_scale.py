@@ -1,4 +1,4 @@
-"""ESS/hour at scale (VERDICT r2 next-#4; BASELINE's primary mixing metric).
+"""ESS/hour at scale.
 
 Runs the production driver on a synthetic dataset of T tips for WINDOW
 seconds, sampling the posterior trace every SAMPLE_EVERY dispatch, and
@@ -18,8 +18,7 @@ Env knobs:
                apples-to-apples cadence comparison.  CAVEAT for overlapped
                rows: each do_mcmc_steps call is at least one overlap CYCLE,
                so a small ESS_SAMPLE_MOVES forces small cycles and their
-               per-cycle fixed costs (measured: 1.33M vs 2.49M moves/s at
-               100k, 1.79M vs 2.43M at 30k).  For a throughput-faithful
+               per-cycle fixed costs.  For a throughput-faithful
                overlapped row, set ESS_SAMPLE_MOVES to the driver's natural
                cycle (min(chunks, dispatch cap / lmpgm) boundaries) or
                accept that the row measures the forced shape.
@@ -30,7 +29,7 @@ Env knobs:
                building from the tree — lets cadence A/B windows start from
                the SAME burned state
   ESS_SAVE_NPZ  save a snapshot after burn (before the window), for reuse
-Usage (TPU): DELPHY_TPU_F32=1 python scripts/ess_at_scale.py
+Usage (GPU): python scripts/ess_at_scale.py
 """
 
 import json
@@ -39,7 +38,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("DELPHY_TPU_F32", "1")
 
 import numpy as np
 
@@ -143,4 +141,3 @@ def main():
 
 if __name__ == "__main__":
     main()
-    os._exit(0)

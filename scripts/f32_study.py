@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""f32-vs-f64 statistical validation (VERDICT round-1 item 6).
+"""f32-vs-f64 statistical validation.
 
-The TPU hot path runs single precision (f64 is software-emulated); the ledger
+DELPHY_TPU_F32=1 runs the hot path in single precision; the ledger
 is re-derived from scratch at every global boundary, so incremental f32 error
 cannot accumulate past one boundary window.  This study quantifies what f32
 does to the SAMPLED DISTRIBUTION, which is the quantity that matters:

@@ -1,5 +1,5 @@
-"""Build + cache a 30k-tip tree (the mid-scale cadence-crossover point,
-VERDICT r4 next-#2) the same way make_tree100k.py builds the 100k one."""
+"""Build + cache a 30k-tip tree (the mid-scale cadence-crossover point)
+the same way make_tree100k.py builds the 100k one."""
 
 import os
 import pickle

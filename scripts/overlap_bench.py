@@ -1,9 +1,9 @@
-"""Measured comparison: blocking vs overlapped dispatch/burst driver
-(VERDICT r3 next-#6).  SARS-scale by default (757 x 29,903); one process,
+"""Measured comparison: blocking vs overlapped dispatch/burst driver.
+SARS-scale by default (757 x 29,903); one process,
 same dataset/tree, fresh Run per mode.
 
 Env: OV_T (757), OV_L (29903), OV_SECONDS (45), OV_MODES ("0,1").
-Usage (TPU): python scripts/overlap_bench.py
+Usage (GPU): python scripts/overlap_bench.py
 """
 
 import json
@@ -12,7 +12,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("DELPHY_TPU_F32", "1")
 
 import numpy as np
 
@@ -62,9 +61,3 @@ def main():
 
 if __name__ == "__main__":
     main()
-    try:
-        import jax.extend.backend
-        jax.extend.backend.clear_backends()
-    except Exception:
-        pass
-    os._exit(0)

@@ -83,7 +83,6 @@ def main():
         log(f"P={P_topo} -> {len(parts)} parts (mean {sizes.mean():.0f} "
             f"max {sizes.max()} nodes): {n_mv} moves in {dt:.2f}s = "
             f"{n_mv/dt:,.0f} moves/s (acc {acc})")
-    os._exit(0)
 
 
 if __name__ == "__main__":

@@ -70,6 +70,4 @@ def main():
 
 
 if __name__ == "__main__":
-    code = main()
-    sys.stdout.flush()
-    os._exit(code)
+    sys.exit(main())

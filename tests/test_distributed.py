@@ -135,7 +135,7 @@ print("PROD", float(run.ledger.log_G), float(run.ledger.log_coal),
 
 
 def test_two_process_production_run():
-    """The PRODUCTION driver across 2 processes (VERDICT r3 next-#4): both
+    """The PRODUCTION driver across 2 processes: both
     processes construct the partitioned Run from process-local part rows
     (make_array_from_process_local_data in the pack path), drive
     Run.do_mcmc_steps — sweeps under shard_map across the process boundary,

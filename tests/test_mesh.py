@@ -216,3 +216,28 @@ def test_cli_mesh_end_to_end(tmp_path):
     log_lines = log_f.read_text().strip().split("\n")
     assert log_lines[0].startswith("Sample\tposterior")
     assert len(log_lines) >= 2
+
+
+def test_mesh_dispatches_compile_once(mesh8):
+    """Host-rebuilt state (a topology burst repacks ts; a parameter setter)
+    must enter the mesh program with the same shardings as its replicated
+    outputs, so a run's later dispatches reuse the first compile."""
+    ref, deltas, miss, dates, names, _ = simulate_dataset(24, 200, mu=2e-3,
+                                                          seed=5)
+    tree = build_random_tree(ref, deltas, miss, dates, names=names,
+                             rng=np.random.default_rng(5))
+    run = Run(tree, seed=6, num_cells=64, local_moves_per_global_move=200,
+              device_partitions=8, mesh=mesh8, topology_moves_enabled=True)
+    run.topology_burst_chunks = 2
+    run.set_mu(float(run.evo.mu))       # as the CLI sets its initial values
+    assert run.evo.mu.sharding.is_equivalent_to(run.ts.t.sharding, 0)
+    bursts = []
+    burst = run._topology_burst
+    run._topology_burst = lambda n: (bursts.append(n), burst(n))
+    run.do_mcmc_steps(4 * run.local_moves_per_global_move)
+    n_compiled = parts_multi_super_step._cache_size()
+    for _ in range(2):
+        run.do_mcmc_steps(4 * run.local_moves_per_global_move)
+    assert len(bursts) >= 2
+    assert parts_multi_super_step._cache_size() == n_compiled
+    run.check_derived_quantities(1e-6)

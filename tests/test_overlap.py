@@ -1,4 +1,4 @@
-"""Overlapped dispatch/burst driver (VERDICT r3 next-#6): the device sweeps
+"""Overlapped dispatch/burst driver: the device sweeps
 one random half of the partition set while the host runs the topology burst
 on the complement, both conditioning on the same frozen boundary values —
 the reference's fork-join argument (core/run.cpp:682-693) with the device
@@ -97,7 +97,7 @@ def _full_state(run):
 
 
 def test_overlap_equals_sequential_execution(overlap_env, monkeypatch):
-    """Exact fork-join correctness (VERDICT r4 next-#8): an overlapped cycle
+    """Exact fork-join correctness: an overlapped cycle
     (host burst running while the device dispatch is in flight) must produce
     BIT-IDENTICAL merged state to a sequential execution of the same frozen
     halves — same uniforms, same stencil, device half fully materialized
@@ -147,8 +147,8 @@ def test_overlap_equals_sequential_execution(overlap_env, monkeypatch):
 
 def test_overlap_mesh_matches_single_device(overlap_env):
     """Overlapped cycles under a ("part",) mesh are bit-identical to the
-    single-device overlapped run (VERDICT r4 next-#7: the mesh path can
-    overlap too — the A/B gather runs on global arrays before shard_map).
+    single-device overlapped run (the A/B gather runs on global arrays
+    before shard_map).
     device_partitions=16 keeps the selection width (P//2 = 8) identical
     with and without the 8-way mesh, so trajectories must match exactly."""
     import jax

@@ -8,7 +8,7 @@ rate matrices — and asserts our kernels reproduce the same analytically
 derived expectations (ported from the EXPECT blocks at
 phylo_tree_calc_tests.cpp:236-441).  Since the reference binary cannot be
 built in this environment, replaying its fixtures is the cross-engine
-contract check (VERDICT round-1 item 4).
+contract check.
 
 Reference tree (phylo_tree_calc_tests.cpp:16-27):
 

@@ -77,7 +77,7 @@ def test_salted_hash_unlocks_collision_locked_singles():
     """Every truly-single slot must be classified single under MOST salts
     (so its time is refreshed over boundaries), and no multi-same-site slot
     may ever be classified single."""
-    from tests.test_block_pallas import _make_run
+    from tests.test_sweep import _make_run
     from delphy_tpu.parallel.sweep import build_part_ctx
     from delphy_tpu.mcmc import global_moves as gm
 
